@@ -1,5 +1,5 @@
-"""Large-scene benchmark: clustered Pallas intersector on a 100k+ triangle
-scene (VERDICT r3 item 4).
+"""Large-scene benchmark: the scene-BVH intersector (ops.intersect
+.traverse_scene_bvh) on a 100k+ triangle scene.
 
 Reports Mrays/s for 1080p primary rays (coherent) and a hemisphere-scrambled
 bounce-style batch (incoherent), plus a correctness check of a random ray
@@ -22,46 +22,37 @@ def log(*a):
 
 
 def run(n: int = 230, reps: int = 5) -> dict:
-    """Build the stress terrain, measure the clustered intersector, return
-    the result dict (called in-process by bench.py -> BENCH JSON)."""
+    """Build the stress terrain, measure the scene intersector, return the
+    result dict (called in-process by bench.py)."""
     import jax
     import jax.numpy as jnp
 
-    from svgf_tpu.render.gbuffer import camera_rays
-    from svgf_tpu.ops.intersect import intersect_scene
-    from svgf_tpu.scenes.stress import stress_scene
+    from svgf_jax.render.gbuffer import camera_rays
+    from svgf_jax.ops.intersect import intersect_scene
+    from svgf_jax.scenes.stress import stress_scene
 
     w, h = 1920, 1080
     t0 = time.time()
     sc = stress_scene(n=n, aspect=w / h)
     arr = sc.flatten()
     log(f"scene: {arr.meta.n_world_tris} world tris, "
-        f"{arr.world_cluster_bounds.shape[0]} clusters "
+        f"{arr.wbvh_skip.shape[0]} scene-BVH nodes "
         f"(built in {time.time()-t0:.1f}s)")
 
     ro, rd = camera_rays(arr.cam_frame[0], arr.cam_proj[0], h, w)
     ro = ro.reshape(-1, 3)
     rd = rd.reshape(-1, 3)
-    # pixel-block lane order — the order render_frame actually uses
-    # for clustered scenes (render.pathtrace.make_block_order)
-    from svgf_tpu.render.pathtrace import make_block_order
-
-    fwd, _, _ = make_block_order(h, w)
-    ro = jax.jit(fwd)(ro)
-    rd = jax.jit(fwd)(rd)
     R = ro.shape[0]
 
     fn = jax.jit(lambda a, o, d: intersect_scene(a, o, d).dist)
     log("compiling primary intersect...")
     t0 = time.time()
-    dist = fn(arr, ro, rd)
-    float(dist[0])
+    dist = jax.block_until_ready(fn(arr, ro, rd))
     log(f"compile+first run: {time.time()-t0:.1f}s")
     best = 1e9
     for _ in range(reps):
         t1 = time.perf_counter()
-        dist = fn(arr, ro, rd)
-        float(jnp.ravel(dist)[0])
+        dist = jax.block_until_ready(fn(arr, ro, rd))
         best = min(best, time.perf_counter() - t1)
     mrays_primary = R / best / 1e6
     log(f"primary: {best*1e3:.2f} ms for {R/1e6:.2f} Mrays "
@@ -75,12 +66,10 @@ def run(n: int = 230, reps: int = 5) -> dict:
     rd2 = rd[perm]
     ro2 = hitp - rd2 * 0.0  # origins at first-hit points, scrambled dirs
     best2 = 1e9
-    d2 = fn(arr, ro2, rd2)
-    float(jnp.ravel(d2)[0])
+    jax.block_until_ready(fn(arr, ro2, rd2))
     for _ in range(3):
         t1 = time.perf_counter()
-        d2 = fn(arr, ro2, rd2)
-        float(jnp.ravel(d2)[0])
+        jax.block_until_ready(fn(arr, ro2, rd2))
         best2 = min(best2, time.perf_counter() - t1)
     mrays_scrambled = R / best2 / 1e6
     log(f"scrambled: {best2*1e3:.2f} ms -> {mrays_scrambled:.1f} Mrays/s")
@@ -113,18 +102,24 @@ def run(n: int = 230, reps: int = 5) -> dict:
         f"max rel dist err {rel.max():.2e}")
 
     return {
-        "metric": "clustered_intersect_1080p",
+        "metric": "scene_bvh_intersect_1080p",
         "tris": int(arr.meta.n_world_tris),
-        "mrays_per_s_primary": round(mrays_primary, 1),
-        "mrays_per_s_scrambled": round(mrays_scrambled, 1),
-        "hit_agreement": round(float(agree), 4),
+        "mrays_per_s_primary": mrays_primary,
+        "mrays_per_s_scrambled": mrays_scrambled,
+        "hit_agreement": float(agree),
         "max_rel_dist_err": float(rel.max()),
     }
 
 
 def main():
+    from svgf_jax.utils.device import card_line, device_record, require_gpu
+    from svgf_jax.utils.jax_cache import enable_compilation_cache
+
+    enable_compilation_cache()
+    require_gpu()
+    log(card_line())
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 230
-    print(json.dumps(run(n)))
+    print(json.dumps({**run(n), "device": device_record()}))
 
 
 if __name__ == "__main__":

@@ -32,12 +32,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-    from svgf_tpu.core.camera import look_at_frame
-    from svgf_tpu.io.binscene import load_reference_scene
-    from svgf_tpu.render.pipeline import render_frame
-    from svgf_tpu.render.types import TemporalState
-    from svgf_tpu.utils.image import psnr, read_png, ssim, to_uint8, write_png
+    from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+    from svgf_jax.core.camera import look_at_frame
+    from svgf_jax.io.binscene import load_reference_scene
+    from svgf_jax.render.pipeline import render_frame
+    from svgf_jax.render.types import TemporalState
+    from svgf_jax.utils.image import psnr, read_png, ssim, to_uint8, write_png
+    from svgf_jax.utils.jax_cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     gal = read_png(GALLERY)[..., :3].astype(np.float32) / 255.0
     gh, gw = gal.shape[:2]

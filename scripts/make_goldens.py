@@ -15,17 +15,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-from svgf_tpu.io.binscene import load_reference_scene
-from svgf_tpu.render.pipeline import render_frame
-from svgf_tpu.render.types import TemporalState
-from svgf_tpu.utils.image import write_png
+from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+from svgf_jax.io.binscene import load_reference_scene
+from svgf_jax.render.pipeline import render_frame
+from svgf_jax.render.types import TemporalState
+from svgf_jax.utils.image import write_png
+from svgf_jax.utils.jax_cache import enable_compilation_cache
+
+enable_compilation_cache()
 
 W, H = 320, 180
 FRAMES = 3
 
 cfg = RenderConfig(
-    width=W, height=H, state_dtype="float32", use_pallas="off",
+    width=W, height=H, state_dtype="float32",
     tracing=TracingConfig(bounces=3),
     svgf=SVGFConfig(spatial_filter_steps=5),
 )

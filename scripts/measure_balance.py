@@ -27,8 +27,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from svgf_tpu.render import pathtrace as pt
-    from svgf_tpu.render.gbuffer import camera_rays
+    from svgf_jax.render import pathtrace as pt
+    from svgf_jax.render.gbuffer import camera_rays
+    from svgf_jax.utils.jax_cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     bands = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     h = int(sys.argv[2]) if len(sys.argv) > 2 else 360
@@ -36,14 +39,14 @@ def main():
     bounces = 5
 
     try:
-        from svgf_tpu.io.binscene import load_reference_scene
+        from svgf_jax.io.binscene import load_reference_scene
 
         scene = load_reference_scene(
             "/root/reference/resources/Scenes/BaseScene"
         )
         name = "BaseScene"
     except Exception:
-        from svgf_tpu.scenes import cornell_box
+        from svgf_jax.scenes import cornell_box
 
         scene = cornell_box()
         name = "cornell"

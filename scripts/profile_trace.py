@@ -1,71 +1,51 @@
-"""Trace-stage profiling on the real chip: where do the ~740 ms go?
+"""Trace-stage profiling on the GPU.
 
 Sweeps trace_chunks (the serial lax.map wavefront split) and isolates the
 G-buffer pass vs the path-trace bounces at 1080p on the Cornell box.
-Methodology matches bench.py (fetch barrier, min of reps).
+Methodology matches bench.py (block_until_ready, min of reps).
 
 Usage: python scripts/profile_trace.py [chunks ...]
 """
 
-import dataclasses
-import os
 import sys
 import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 
-def _fetch(x):
-    import jax.numpy as jnp
-
-    return float(jnp.ravel(x)[0])
-
-
 def main():
     import jax
     import jax.numpy as jnp
 
-    from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-    from svgf_tpu.render.gbuffer import raster_gbuffer
-    from svgf_tpu.render.pipeline import render_frame
-    from svgf_tpu.render.types import TemporalState
-    from svgf_tpu.scenes.cornell import cornell_box
+    from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+    from svgf_jax.render.gbuffer import raster_gbuffer
+    from svgf_jax.render.pipeline import render_frame
+    from svgf_jax.render.types import TemporalState
+    from svgf_jax.scenes.cornell import cornell_box
 
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        __file__.rsplit("/", 2)[0], ".jax_cache_tpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from svgf_jax.utils.device import card_line, require_gpu
+    from svgf_jax.utils.jax_cache import enable_compilation_cache
+
+    enable_compilation_cache()
+    require_gpu()
+    print(card_line())
 
     w, h = 1920, 1080
     chunk_list = [int(a) for a in sys.argv[1:]] or [32, 8, 4, 2, 1]
     print(f"devices: {jax.devices()}  frame: {w}x{h}")
 
-    ident = jax.jit(lambda x: x + 0.0)
-    xs = jnp.ones((8, 128), jnp.float32)
-    _fetch(ident(xs))
-    fo = 1e9
-    for _ in range(5):
-        t0 = time.perf_counter()
-        _fetch(ident(xs))
-        fo = min(fo, time.perf_counter() - t0)
-    print(f"fetch overhead: {fo*1e3:.1f} ms")
-
     scene = cornell_box()
     scene.cameras[0].aspect = w / h
     arrays = scene.flatten()
 
-    def scal(state):
-        return state.color if state.color is not None else state.planar.prev
-
     def timeit(step, state, reps=3):
-        state = step(state)
-        _fetch(scal(state))
+        state = jax.block_until_ready(step(state))
         best = 1e9
         for _ in range(reps):
             t0 = time.perf_counter()
-            state = step(state)
-            _fetch(scal(state))
+            state = jax.block_until_ready(step(state))
             best = min(best, time.perf_counter() - t0)
-        return (best - fo) * 1e3
+        return best * 1e3
 
     for nc in chunk_list:
         cfg = RenderConfig(
@@ -84,24 +64,20 @@ def main():
         step = jax.jit(trace_only, donate_argnums=(0,))
         print(f"compiling trace_chunks={nc} ...", flush=True)
         t0 = time.perf_counter()
-        try:
-            ms = timeit(step, TemporalState.initial(h, w, jnp.float16))
-        except Exception as e:
-            print(f"  trace_chunks={nc}: FAILED {type(e).__name__}: {e}")
-            continue
+        ms = timeit(step, TemporalState.initial(h, w, jnp.float16))
         print(f"  trace_chunks={nc}: {ms:8.2f} ms  (compile+run total "
               f"{time.perf_counter()-t0:.0f}s)", flush=True)
 
     # G-buffer alone (best chunk count from above sweep applies similarly)
     for nc in (chunk_list[-1],):
         gb = jax.jit(lambda: raster_gbuffer(arrays, 0, h, w, num_chunks=nc))
-        _fetch(gb().depth)
+        jax.block_until_ready(gb())
         best = 1e9
         for _ in range(3):
             t0 = time.perf_counter()
-            _fetch(gb().depth)
+            jax.block_until_ready(gb())
             best = min(best, time.perf_counter() - t0)
-        print(f"gbuffer alone (chunks={nc}): {(best-fo)*1e3:8.2f} ms")
+        print(f"gbuffer alone (chunks={nc}): {best*1e3:8.2f} ms")
 
 
 if __name__ == "__main__":

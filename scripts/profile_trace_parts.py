@@ -1,63 +1,41 @@
-"""Microbenchmark the trace-stage building blocks on the real chip.
+"""Microbenchmark the trace-stage building blocks on the GPU.
 
 Times each component of a bounce (intersect, shading-point eval, light
-sampling, BSDF eval, RNG draws) in isolation at a fixed lane count, K
-iterations inside one jit, fetch as the completion barrier.
+sampling, BSDF eval, RNG draws) in isolation at a fixed lane count: K
+iterations inside one jit (each perturbs its input so XLA cannot hoist the
+work), block_until_ready as the completion barrier.
 
 Usage: python scripts/profile_trace_parts.py [R] [K]
 """
 
-import os
 import sys
 import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 
-def _setup_cache():
-    import jax
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     ".jax_cache_tpu"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
-def _fetch(x):
-    import jax.numpy as jnp
-
-    return float(jnp.ravel(x)[0])
-
-
 def main():
     import jax
     import jax.numpy as jnp
 
-    _setup_cache()
+    from svgf_jax.utils.device import card_line, require_gpu
+    from svgf_jax.utils.jax_cache import enable_compilation_cache
 
-    from svgf_tpu.ops import bsdf as B
-    from svgf_tpu.ops import intersect as I
-    from svgf_tpu.ops.lights import sample_lights, sample_lights_pdf_from_hit
-    from svgf_tpu.ops.sampling import RngStream
-    from svgf_tpu.render.gbuffer import camera_rays
-    from svgf_tpu.render.pathtrace import _shading_point
-    from svgf_tpu.scenes.cornell import cornell_box
+    enable_compilation_cache()
+    require_gpu()
+    print(card_line())
+
+    from svgf_jax.ops import bsdf as B
+    from svgf_jax.ops import intersect as I
+    from svgf_jax.ops.lights import sample_lights, sample_lights_pdf_from_hit
+    from svgf_jax.ops.sampling import RngStream
+    from svgf_jax.render.gbuffer import camera_rays
+    from svgf_jax.render.pathtrace import _shading_point
+    from svgf_jax.scenes.cornell import cornell_box
 
     R = int(sys.argv[1]) if len(sys.argv) > 1 else 1920 * 1080 // 8
     K = int(sys.argv[2]) if len(sys.argv) > 2 else 24
     print(f"devices: {jax.devices()}  R={R}  K={K}")
-
-    ident = jax.jit(lambda x: x + 0.0)
-    xs = jnp.ones((8, 128), jnp.float32)
-    _fetch(ident(xs))
-    fo = 1e9
-    for _ in range(5):
-        t0 = time.perf_counter()
-        _fetch(ident(xs))
-        fo = min(fo, time.perf_counter() - t0)
-    print(f"fetch overhead: {fo*1e3:.1f} ms")
 
     scene = cornell_box()
     scene.cameras[0].aspect = 16 / 9
@@ -72,36 +50,27 @@ def main():
     key = jax.random.key(0)
     ids = jnp.arange(R, dtype=jnp.uint32)
 
-    I.set_pallas_mode("auto")
     hit0 = jax.jit(lambda ro, rd: I.intersect_scene(arrays, ro, rd))(ro, rd)
     jax.block_until_ready(hit0)
 
     def timed(name, make_body, x0):
         """make_body: v -> v (same shape); K reps inside one jit."""
-        try:
-            f = jax.jit(
-                lambda x: jax.lax.fori_loop(0, K, lambda i, v: make_body(v), x)
-            )
-            _fetch(f(x0))
-            best = 1e9
-            for _ in range(6):
-                t0 = time.perf_counter()
-                _fetch(f(x0))
-                best = min(best, time.perf_counter() - t0)
-            ms = (best - fo) / K * 1e3
-            print(f"{name:38s} {ms:9.3f} ms/iter", flush=True)
-        except Exception as e:
-            print(f"{name:38s} FAILED {type(e).__name__}: {e}", flush=True)
+        f = jax.jit(
+            lambda x: jax.lax.fori_loop(0, K, lambda i, v: make_body(v), x)
+        )
+        jax.block_until_ready(f(x0))
+        best = 1e9
+        for _ in range(6):
+            t0 = time.perf_counter()
+            jax.block_until_ready(f(x0))
+            best = min(best, time.perf_counter() - t0)
+        print(f"{name:38s} {best / K * 1e3:9.3f} ms/iter", flush=True)
 
-    # 1. intersect (pallas) — perturb origin each iter to defeat CSE
+    # 1. intersect — perturb origin each iter to defeat CSE
     def isect(v):
         hit = I.intersect_scene(arrays, ro + v[:, None] * 1e-6, rd)
         return hit.dist
-    timed("intersect_scene (pallas)", isect, jnp.zeros((R,)))
-
-    I.set_pallas_mode("off")
-    timed("intersect_scene (xla dense)", isect, jnp.zeros((R,)))
-    I.set_pallas_mode("auto")
+    timed("intersect_scene (dense)", isect, jnp.zeros((R,)))
 
     def isect_masked(v):
         act = v > 0.5  # all False
@@ -132,7 +101,7 @@ def main():
     timed("sample_lights_pdf_from_hit", lights_pdf, jnp.zeros((R,)))
 
     # 4. BSDF eval+sample+pdf
-    sh = jax.jit(lambda: _shading_point(arrays, hit0, -rd))()
+    sh = jax.jit(lambda h, d: _shading_point(arrays, h, -d))(hit0, rd)
     jax.block_until_ready(sh)
     mt = arrays.meta.mat_types_used
 
@@ -155,7 +124,7 @@ def main():
     timed("12x rng uniform draws", rngs, jnp.zeros((R,)))
 
     # 6. one full MIS bounce (everything above composed, incl. 2 traces)
-    from svgf_tpu.render.pathtrace import PathState, _bounce_mis
+    from svgf_jax.render.pathtrace import PathState, _bounce_mis
 
     def bounce(v):
         st = PathState(

@@ -36,13 +36,15 @@ def main():
     ap.add_argument("--config", default=None, help="RenderConfig JSON file")
     args = ap.parse_args()
 
-    import jax
+    from svgf_jax.utils.jax_cache import enable_compilation_cache
 
-    from svgf_tpu import DebugOutput, RenderConfig, SVGFConfig, TracingConfig
-    from svgf_tpu.core.camera import orbit_frame
-    from svgf_tpu.io import load_checkpoint, save_checkpoint
-    from svgf_tpu.render.pipeline import Renderer
-    from svgf_tpu.utils.image import write_png
+    enable_compilation_cache()
+
+    from svgf_jax import DebugOutput, RenderConfig, SVGFConfig, TracingConfig
+    from svgf_jax.core.camera import orbit_frame
+    from svgf_jax.io import load_checkpoint, save_checkpoint
+    from svgf_jax.render.pipeline import Renderer
+    from svgf_jax.utils.image import write_png
 
     if args.config:
         cfg = RenderConfig.from_json(open(args.config).read())
@@ -54,22 +56,22 @@ def main():
             debug_output=DebugOutput[args.tap],
             # production-loop settings (bench.py-matched): chunked wavefront
             # + no per-stage tap materialization unless a tap was asked for
-            trace_chunks=48 if args.width * args.height >= 512 * 512 else 4,
+            trace_chunks=8 if args.width * args.height >= 512 * 512 else 1,
             keep_taps=DebugOutput[args.tap] != DebugOutput.FINAL,
         )
 
     if args.scene == "cornell":
-        from svgf_tpu.scenes import cornell_box
+        from svgf_jax.scenes import cornell_box
 
         scene = cornell_box(aspect=cfg.width / cfg.height)
         target, distance = np.array([0.0, 0.0, 0.0]), 3.4
     elif args.scene == "default":
-        from svgf_tpu.scenes import default_scene
+        from svgf_jax.scenes import default_scene
 
         scene = default_scene(aspect=cfg.width / cfg.height)
         target, distance = np.array([0.0, 0.0, 0.0]), 4.0
     else:
-        from svgf_tpu.io import load_reference_scene
+        from svgf_jax.io import load_reference_scene
 
         scene = load_reference_scene(args.scene)
         # orbit around the scene centroid at its current camera distance
@@ -96,8 +98,7 @@ def main():
         write_png(os.path.join(args.out, f"frame_{f:04d}.png"), img)
         print(f"frame {f}: {dt*1000:.1f} ms  mean={img.mean():.4f}", flush=True)
 
-    save_checkpoint(os.path.join(args.out, "ckpt.npz"), r.state,
-                    height=cfg.height, width=cfg.width)
+    save_checkpoint(os.path.join(args.out, "ckpt.npz"), r.state)
     print(f"checkpoint saved; resume with --resume {args.out}/ckpt.npz")
 
 

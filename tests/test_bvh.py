@@ -9,10 +9,10 @@ import functools
 import jax
 import jax.numpy as jnp
 
-import svgf_tpu.ops.intersect as intersect_mod
-from svgf_tpu.accel.bvh import MAX_LEAF, build_blas
-from svgf_tpu.ops.intersect import intersect_brute_force
-from svgf_tpu.scenes import cornell_box
+import svgf_jax.ops.intersect as intersect_mod
+from svgf_jax.accel.bvh import MAX_LEAF, build_blas
+from svgf_jax.ops.intersect import intersect_brute_force
+from svgf_jax.scenes import cornell_box
 
 intersect_brute_force = jax.jit(intersect_brute_force)
 
@@ -138,9 +138,9 @@ def test_scene_bvh_large_mesh_matches_brute_force():
     import jax
     import jax.numpy as jnp
 
-    from svgf_tpu.core.camera import Camera
-    from svgf_tpu.core.scene import Instance, Material, Scene, Shape
-    from svgf_tpu.ops.intersect import (
+    from svgf_jax.core.camera import Camera
+    from svgf_jax.core.scene import Instance, Material, Scene, Shape
+    from svgf_jax.ops.intersect import (
         DENSE_MAX_TRIS,
         intersect_brute_force,
         intersect_scene,

@@ -6,8 +6,7 @@ The finite-difference check masks out silhouette/occlusion edge pixels:
 pathwise gradients deliberately exclude visibility-boundary terms (hit
 selection is stop-grad — reparameterized edge sampling is out of scope,
 PARITY.md), so FD and analytic gradients only agree where the integrand is
-locally smooth. On the interior mask they agree to ~1% (scripts/
-grad_fd_explore.py)."""
+locally smooth. On the interior mask they agree to ~1%."""
 
 import dataclasses
 
@@ -15,18 +14,18 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-from svgf_tpu.render.gbuffer import raster_gbuffer
-from svgf_tpu.render.pipeline import render_frame
-from svgf_tpu.render.types import TemporalState
-from svgf_tpu.scenes.cornell import cornell_box
+from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+from svgf_jax.render.gbuffer import raster_gbuffer
+from svgf_jax.render.pipeline import render_frame
+from svgf_jax.render.types import TemporalState
+from svgf_jax.scenes.cornell import cornell_box
 
 W, H = 40, 32
 
 
 def make_setup():
     config = RenderConfig(
-        width=W, height=H, state_dtype="float32", use_pallas="off",
+        width=W, height=H, state_dtype="float32",
         tracing=TracingConfig(bounces=1),
         svgf=SVGFConfig(spatial_filter_steps=1),
     )

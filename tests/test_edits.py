@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from svgf_tpu.core.edits import update_instance_transform, update_material
-from svgf_tpu.core.scene import Material, MaterialType
-from svgf_tpu.scenes.cornell import cornell_box
+from svgf_jax.core.edits import update_instance_transform, update_material
+from svgf_jax.core.scene import Material, MaterialType
+from svgf_jax.scenes.cornell import cornell_box
 
 
 def _identity_map(a, b):
@@ -111,11 +111,11 @@ def test_edit_during_render_no_retrace():
     """A material edit between frames must not retrace the jitted step."""
     import jax
 
-    from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-    from svgf_tpu.render.pipeline import Renderer
+    from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+    from svgf_jax.render.pipeline import Renderer
 
     config = RenderConfig(
-        width=32, height=24, state_dtype="float32", use_pallas="off",
+        width=32, height=24, state_dtype="float32",
         tracing=TracingConfig(bounces=1),
         svgf=SVGFConfig(spatial_filter_steps=1),
     )
@@ -136,14 +136,13 @@ def test_remove_and_readd_instance():
     restores the original image."""
     import functools
     import jax
-    from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-    from svgf_tpu.core.edits import add_instance, remove_instance
-    from svgf_tpu.render.pipeline import render_frame
-    from svgf_tpu.render.types import TemporalState
+    from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+    from svgf_jax.core.edits import add_instance, remove_instance
+    from svgf_jax.render.pipeline import render_frame
+    from svgf_jax.render.types import TemporalState
 
     w, h = 32, 24
     cfg = RenderConfig(width=w, height=h, state_dtype="float32",
-                       use_pallas="off",
                        tracing=TracingConfig(bounces=1),
                        svgf=SVGFConfig(spatial_filter_steps=1))
     scene = cornell_box()
@@ -176,8 +175,8 @@ def test_remove_and_readd_instance():
 def test_add_shape_and_duplicate():
     """add_shape appends + instances a shape (reference sceneBVH::AddShape,
     BVH.cpp:549-583); duplicate_instance mirrors the GUI duplicate button."""
-    from svgf_tpu.core.edits import add_shape, duplicate_instance
-    from svgf_tpu.core.scene import Shape
+    from svgf_jax.core.edits import add_shape, duplicate_instance
+    from svgf_jax.core.scene import Shape
 
     scene = cornell_box()
     n_sh, n_in = len(scene.shapes), len(scene.instances)

@@ -17,10 +17,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-from svgf_tpu.io.binscene import load_reference_scene
-from svgf_tpu.render.pipeline import render_frame
-from svgf_tpu.render.types import TemporalState
+from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+from svgf_jax.io.binscene import load_reference_scene
+from svgf_jax.render.pipeline import render_frame
+from svgf_jax.render.types import TemporalState
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "basescene.npz")
 BASESCENE = "/root/reference/resources/Scenes/BaseScene"
@@ -31,7 +31,7 @@ def test_basescene_matches_golden():
     g = np.load(GOLDEN)
     W, H, frames = int(g["width"]), int(g["height"]), int(g["frames"])
     cfg = RenderConfig(
-        width=W, height=H, state_dtype="float32", use_pallas="off",
+        width=W, height=H, state_dtype="float32",
         tracing=TracingConfig(bounces=3),
         svgf=SVGFConfig(spatial_filter_steps=5),
     )

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svgf_tpu.io import (
+from svgf_jax.io import (
     load_asset,
     load_checkpoint,
     load_gltf,
@@ -18,8 +18,8 @@ from svgf_tpu.io import (
     save_checkpoint,
     save_scene_npz,
 )
-from svgf_tpu.render.types import TemporalState
-from svgf_tpu.scenes import cornell_box
+from svgf_jax.render.types import TemporalState
+from svgf_jax.scenes import cornell_box
 
 REF_SCENE = "/root/reference/resources/Scenes/BaseScene"
 
@@ -96,7 +96,7 @@ def test_gltf_loader(tmp_path):
 
 
 def test_asset_dispatch(tmp_path):
-    from svgf_tpu.core.scene import Scene
+    from svgf_jax.core.scene import Scene
 
     path = _tiny_gltf(tmp_path)
     s = load_asset(path, Scene())
@@ -135,7 +135,7 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_binscene_write_read_roundtrip(tmp_path):
     """Reference-binary writer (scene::ToFile, Scene.cpp:515-549) round-trips
     through our reader: same geometry, materials, instances, camera."""
-    from svgf_tpu.io.binscene import load_reference_scene, save_reference_scene
+    from svgf_jax.io.binscene import load_reference_scene, save_reference_scene
 
     s = cornell_box()
     path = str(tmp_path / "scene.bin")

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svgf_tpu.core.camera import Camera, look_at_frame
-from svgf_tpu.core.scene import Instance, Material, MaterialType, Scene, Shape
-from svgf_tpu.ops import media as M
-from svgf_tpu.render.pathtrace import pathtrace
+from svgf_jax.core.camera import Camera, look_at_frame
+from svgf_jax.core.scene import Instance, Material, MaterialType, Scene, Shape
+from svgf_jax.ops import media as M
+from svgf_jax.render.pathtrace import pathtrace
 
 DENSITY = jnp.array([0.5, 1.0, 2.0])
 

@@ -5,8 +5,8 @@ import struct
 import numpy as np
 import pytest
 
-from svgf_tpu.io.plyloader import load_ply
-from svgf_tpu.io.stlloader import load_off, load_stl
+from svgf_jax.io.plyloader import load_ply
+from svgf_jax.io.stlloader import load_off, load_stl
 
 # a unit right tetrahedron: 4 vertices, 4 faces
 TET_V = np.array(
@@ -140,8 +140,8 @@ def test_off(tmp_path):
 
 @pytest.mark.parametrize("ext", ["ply", "stl", "off"])
 def test_dispatch_and_flatten(tmp_path, ext):
-    from svgf_tpu.core.scene import Material, Scene
-    from svgf_tpu.io.assets import load_asset
+    from svgf_jax.core.scene import Material, Scene
+    from svgf_jax.io.assets import load_asset
 
     p = tmp_path / f"tet.{ext}"
     if ext == "ply":
@@ -157,7 +157,7 @@ def test_dispatch_and_flatten(tmp_path, ext):
     scene.materials.append(Material())
     scene = load_asset(str(p), scene, material=0)
     assert len(scene.shapes) == 1 and len(scene.instances) == 1
-    from svgf_tpu.core.camera import Camera
+    from svgf_jax.core.camera import Camera
 
     scene.cameras.append(Camera())
     arr = scene.flatten()

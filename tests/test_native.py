@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svgf_tpu.accel import native
+from svgf_jax.accel import native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,9 +54,9 @@ def test_native_blas_structure():
 
 def test_native_traversal_matches_brute_force(monkeypatch):
     """A scene flattened with the native builder traces identically."""
-    import svgf_tpu.ops.intersect as intersect_mod
-    from svgf_tpu.ops.intersect import intersect_brute_force
-    from svgf_tpu.scenes import cornell_box
+    import svgf_jax.ops.intersect as intersect_mod
+    from svgf_jax.ops.intersect import intersect_brute_force
+    from svgf_jax.scenes import cornell_box
 
     monkeypatch.setenv("SVGF_NATIVE", "1")
     monkeypatch.setattr(intersect_mod, "DENSE_MAX_TRIS", 0)  # force BVH path
@@ -72,7 +72,7 @@ def test_native_traversal_matches_brute_force(monkeypatch):
 
 
 def test_native_tangents_match_numpy():
-    from svgf_tpu.core.scene import _lengyel_tangents
+    from svgf_jax.core.scene import _lengyel_tangents
 
     rng = np.random.default_rng(5)
     V, F = 64, 100

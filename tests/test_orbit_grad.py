@@ -20,11 +20,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-from svgf_tpu.core.camera import look_at_frame
-from svgf_tpu.render.pipeline import render_frame
-from svgf_tpu.render.types import TemporalState
-from svgf_tpu.scenes.cornell import cornell_box
+from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+from svgf_jax.core.camera import look_at_frame
+from svgf_jax.render.pipeline import render_frame
+from svgf_jax.render.types import TemporalState
+from svgf_jax.scenes.cornell import cornell_box
 
 W, H = 40, 32
 N_FRAMES = 4
@@ -43,7 +43,7 @@ def _orbit_poses():
 
 def _setup():
     config = RenderConfig(
-        width=W, height=H, state_dtype="float32", use_pallas="off",
+        width=W, height=H, state_dtype="float32",
         tracing=TracingConfig(bounces=2),
         svgf=SVGFConfig(spatial_filter_steps=1),
     )

@@ -1,24 +1,20 @@
-"""End-to-end coverage of the PRODUCTION Pallas sharded path (VERDICT r4
-missing item 3): the row-mesh sharded frame with use_pallas="interpret"
-exercises the Pallas temporal band kernel + _row_halo_planes ppermute halo
-exchange + the Pallas moments/a-trous/TAA band kernels — the exact code that
-runs on a real TPU mesh (where resolve_pallas("auto") turns Pallas ON) —
-and asserts parity with the unsharded interpret-mode frame.
+"""End-to-end coverage of the sharded main path: the row-mesh sharded frame
+at the main path's fp16 state, 5 a-trous iterations (the 16-step halo is
+wider than an 8-row band, so the band gather path runs too) and TAA,
+against the unsharded frame.
 
 Runs on the virtual 8-device CPU mesh (conftest.py)."""
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svgf_tpu import RenderConfig, SVGFConfig, TracingConfig
-from svgf_tpu.parallel import make_row_mesh, make_sharded_step
-from svgf_tpu.render.pipeline import render_frame
-from svgf_tpu.render.types import TemporalState
-from svgf_tpu.scenes import cornell_box
+from svgf_jax import RenderConfig, SVGFConfig, TracingConfig
+from svgf_jax.parallel import make_row_mesh, make_sharded_step
+from svgf_jax.render.pipeline import render_frame
+from svgf_jax.render.types import TemporalState
+from svgf_jax.scenes import cornell_box
 
 W, H = 64, 64
 NDEV = 8
@@ -40,30 +36,26 @@ def scene_arrays():
 
 def make_config():
     return RenderConfig(
-        width=W, height=H, state_dtype="float32",
-        use_pallas="interpret",              # production kernels, CPU interpreter
-        planar_chain=False,   # compare the per-stage kernels (the band path's
-                              # twins) — the planar chain has its own parity
-                              # suite (tests/test_planar.py)
-        svgf=SVGFConfig(spatial_filter_steps=3),
+        width=W, height=H, state_dtype="float16",
+        svgf=SVGFConfig(spatial_filter_steps=5),
         tracing=TracingConfig(bounces=2),
     )
 
 
 def test_sharded_pallas_frame_matches_unsharded(mesh, scene_arrays):
     """Two frames (second exercises reprojection with live history) through
-    BOTH the sharded Pallas band path and the unsharded Pallas path."""
+    BOTH the sharded band path and the unsharded path."""
     cfg = make_config()
 
-    # unsharded reference (same Pallas kernels, whole-frame layout)
-    state_u = TemporalState.initial(H, W, jnp.float32)
+    # unsharded reference (whole frame)
+    state_u = TemporalState.initial(H, W, jnp.float16)
     step_u = jax.jit(lambda s: render_frame(scene_arrays, s, cfg))
     out_u1, state_u = step_u(state_u)
     out_u2, state_u = step_u(state_u)
 
-    # sharded production path (band kernels + ppermute halos)
+    # sharded path (band stencils + ppermute halos)
     step_s = make_sharded_step(cfg, mesh)
-    state_s = TemporalState.initial(H, W, jnp.float32)
+    state_s = TemporalState.initial(H, W, jnp.float16)
     out_s1, state_s = step_s(scene_arrays, state_s)
     out_s2, state_s = step_s(scene_arrays, state_s)
 
@@ -81,12 +73,11 @@ def test_sharded_pallas_frame_matches_unsharded(mesh, scene_arrays):
     assert d.mean() < 1e-4
     assert (d > 5e-3).mean() == 0.0
 
-    # carried state agrees too (next frame's temporal inputs)
-    np.testing.assert_allclose(
-        np.asarray(state_s.color), np.asarray(state_u.color), atol=3e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(state_s.moments), np.asarray(state_u.moments), atol=3e-5
-    )
+    # carried state agrees too (next frame's temporal inputs), to one fp16
+    # rounding step: a reassociation-level f32 difference may round to the
+    # neighbouring fp16 value (one ulp at 1.0 is 9.8e-4)
+    for a, b in ((state_s.color, state_u.color), (state_s.moments, state_u.moments)):
+        np.testing.assert_allclose(np.asarray(a, np.float32),
+                                   np.asarray(b, np.float32), atol=1e-3)
     assert (np.asarray(state_s.history_len)
             == np.asarray(state_u.history_len)).all()

@@ -3,23 +3,23 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from svgf_tpu.ops.geometry import to_srgb
-from svgf_tpu.render.svgf import (
+from svgf_jax.ops.geometry import to_srgb
+from svgf_jax.render.svgf import (
+    atrous_chain,
     atrous_iteration,
     filter_moments,
     taa,
     temporal_filter,
-    wavelet_filter,
+    wavelet_steps,
 )
-from svgf_tpu.render.types import GBuffer
+from svgf_jax.render.types import GBuffer
 
 atrous_iteration = jax.jit(atrous_iteration, static_argnames=("step",))
 temporal_filter = jax.jit(temporal_filter)
 filter_moments = jax.jit(filter_moments)
 taa = jax.jit(taa)
-wavelet_filter = jax.jit(wavelet_filter, static_argnames=("steps",))
+atrous_chain = jax.jit(atrous_chain, static_argnames=("steps",))
 
 H, W = 32, 48
 
@@ -91,7 +91,8 @@ def test_wavelet_feedback_is_iteration0():
     img = jnp.asarray(rng.uniform(0, 1, (H, W, 4)), jnp.float32)
     g = flat_gbuffer()
     it0 = atrous_iteration(img, g, 1, 10.0, 128.0)
-    final, feedback, _ = wavelet_filter(img, g, steps=3, phi_colour=10.0, phi_normal=128.0)
+    final, feedback = atrous_chain(img, g, steps=wavelet_steps(3), phi_colour=10.0,
+                                   phi_normal=128.0)
     np.testing.assert_allclose(feedback, it0, atol=1e-6)
     assert not np.allclose(final, it0)
 
@@ -217,7 +218,8 @@ def test_gradients_flow_through_filters():
     g = flat_gbuffer()
 
     def loss(x):
-        out, _, _ = wavelet_filter(x, g, steps=2, phi_colour=10.0, phi_normal=128.0)
+        out, _ = atrous_chain(x, g, steps=wavelet_steps(2), phi_colour=10.0,
+                              phi_normal=128.0)
         # local window keeps the loss magnitude small so fp32 finite
         # differences below stay above rounding noise
         return jnp.sum(out[2:12, 2:12, :3] ** 2)

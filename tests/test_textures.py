@@ -8,11 +8,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
-from svgf_tpu.core.scene import Material, MaterialType
-from svgf_tpu.core.textures import build_texture_stack, to_rgba_u8
-from svgf_tpu.ops.texture import eval_texture, sample_texture, to_linear
-from svgf_tpu.scenes.cornell import cornell_box
+from svgf_jax.config import RenderConfig, SVGFConfig, TracingConfig
+from svgf_jax.core.scene import Material, MaterialType
+from svgf_jax.core.textures import build_texture_stack, to_rgba_u8
+from svgf_jax.ops.texture import eval_texture, sample_texture, to_linear
+from svgf_jax.scenes.cornell import cornell_box
 
 
 def checkerboard(n=8, size=32):
@@ -84,11 +84,11 @@ def _textured_cornell(texture, mat_kw=None):
 def test_textured_render_differs():
     """A colour texture must change the render; the parity default
     (textures_enabled=False = the reference's vec4(1) stub) must not."""
-    from svgf_tpu.render.pipeline import render_frame
-    from svgf_tpu.render.types import TemporalState
+    from svgf_jax.render.pipeline import render_frame
+    from svgf_jax.render.types import TemporalState
 
     config = RenderConfig(
-        width=64, height=48, state_dtype="float32", use_pallas="off",
+        width=64, height=48, state_dtype="float32",
         tracing=TracingConfig(bounces=2),
         svgf=SVGFConfig(spatial_filter_steps=1),
     )
@@ -134,8 +134,8 @@ def test_alpha_texture_sets_has_opacity():
 
 
 def test_normal_map_changes_first_normal():
-    from svgf_tpu.ops.intersect import intersect_scene
-    from svgf_tpu.render.pathtrace import _shading_point
+    from svgf_jax.ops.intersect import intersect_scene
+    from svgf_jax.render.pathtrace import _shading_point
 
     # a normal map tilting everything toward +x in tangent space
     nm = np.zeros((4, 4, 4), np.uint8)
@@ -168,8 +168,8 @@ def test_gltf_texture_import(tmp_path):
     import base64
     import json
 
-    from svgf_tpu.io.gltf import load_gltf
-    from svgf_tpu.utils.image import write_png
+    from svgf_jax.io.gltf import load_gltf
+    from svgf_jax.utils.image import write_png
 
     png_path = tmp_path / "t.png"
     write_png(str(png_path), checkerboard(n=2, size=8)[..., :3])
@@ -206,7 +206,7 @@ def test_gltf_texture_import(tmp_path):
 
 
 def test_scene_npz_texture_roundtrip(tmp_path):
-    from svgf_tpu.io.serialization import load_scene_npz, save_scene_npz
+    from svgf_jax.io.serialization import load_scene_npz, save_scene_npz
 
     scene = _textured_cornell(checkerboard(n=2, size=8),
                               mat_kw={"colour_texture": 0})
@@ -220,7 +220,7 @@ def test_scene_npz_texture_roundtrip(tmp_path):
 
 
 def test_hdr_roundtrip(tmp_path):
-    from svgf_tpu.utils.image import read_hdr, write_hdr
+    from svgf_jax.utils.image import read_hdr, write_hdr
 
     img = np.abs(
         np.random.default_rng(0).normal(1.0, 2.0, (9, 17, 3))
